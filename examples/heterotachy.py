@@ -5,7 +5,7 @@ models — one per subtree plus one for the root branch — mapped onto the
 five branches via grouped pll_update_prob_matrices calls.
 """
 import _common  # noqa: F401
-import libpll2_tpu as pll
+import libpll2_jax as pll
 
 RMATRIX_COUNT = 3
 

@@ -2,7 +2,7 @@
 
 The complete client workflow the reference leaves to RAxML-NG — site
 compression, parsimony starting tree, gradient model fit, SPR search —
-as a single framework call (libpll2_tpu.infer_ml_tree).
+as a single framework call (libpll2_jax.infer_ml_tree).
 
 Usage: python infer_demo.py [tips] [sites]
 """
@@ -11,11 +11,11 @@ import sys
 
 import numpy as np
 
-from libpll2_tpu import infer_ml_tree
-from libpll2_tpu import tree as T
-from libpll2_tpu.models.gamma import compute_gamma_cats
-from libpll2_tpu.tree.compare import rf_distance_normalized
-from libpll2_tpu.tree.generate import random_newick, simulate_alignment
+from libpll2_jax import infer_ml_tree
+from libpll2_jax import tree as T
+from libpll2_jax.models.gamma import compute_gamma_cats
+from libpll2_jax.tree.compare import rf_distance_normalized
+from libpll2_jax.tree.generate import random_newick, simulate_alignment
 
 TIPS = int(sys.argv[1]) if len(sys.argv) > 1 else 16
 SITES = int(sys.argv[2]) if len(sys.argv) > 2 else 500

@@ -5,8 +5,8 @@ rate category uses its own empirical matrix (params_indices =
 [0, 1, 2, 3] instead of all zeros).
 """
 import _common  # noqa: F401
-import libpll2_tpu as pll
-from libpll2_tpu.models.aa import aa_model
+import libpll2_jax as pll
+from libpll2_jax.models.aa import aa_model
 
 SEQS = [
     "ARNDCQEGHILKMFPSTWYV",

@@ -12,8 +12,8 @@ Usage: python load_utree.py [newick-file]   (defaults to a demo tree)
 import _common  # noqa: F401
 import sys
 
-from libpll2_tpu import tree as T
-from libpll2_tpu.utils.random import GlibcRandom
+from libpll2_jax import tree as T
+from libpll2_jax.utils.random import GlibcRandom
 
 DEMO = "((A:0.1,B:0.2):0.3,((C:0.1,D:0.1):0.2,E:0.3):0.1);"
 

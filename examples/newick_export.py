@@ -14,8 +14,8 @@ Usage: python newick_export.py [newick-file]   (defaults to a demo tree)
 import _common  # noqa: F401
 import sys
 
-from libpll2_tpu import tree as T
-from libpll2_tpu.utils.random import GlibcRandom
+from libpll2_jax import tree as T
+from libpll2_jax.utils.random import GlibcRandom
 
 from load_utree import DEMO, load_tree_unrooted
 

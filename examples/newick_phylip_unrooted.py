@@ -10,9 +10,9 @@ import _common  # noqa: F401
 import pathlib
 import tempfile
 
-import libpll2_tpu as pll
-from libpll2_tpu import tree as T
-from libpll2_tpu.io import compress_site_patterns, load_phylip
+import libpll2_jax as pll
+from libpll2_jax import tree as T
+from libpll2_jax.io import compress_site_patterns, load_phylip
 
 NEWICK = ("((t0:0.12,t1:0.34):0.11,(t2:0.23,t3)x:0.09,"
           "(t4:0.40,t5:0.05):0.17);")          # t3 and x: missing lengths

@@ -5,7 +5,7 @@ edge (branch-invariant sufficient statistics), then cheap per-iteration
 (d1, d2) evaluations and the update  len -= d1/d2  (newton.c:31-100).
 """
 import _common  # noqa: F401
-import libpll2_tpu as pll
+import libpll2_jax as pll
 
 MAX_ITER = 32
 EPSILON = 1e-5

@@ -19,7 +19,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import jax
 jax.config.update("jax_enable_x64", True)
-# f64 end-to-end demo: run on the CPU backend (the TPU fast path is f32;
+# f64 end-to-end demo: run on the CPU backend (the GPU fast path is f32;
 # must be set before any backend initialization)
 try:
     jax.config.update("jax_platforms", "cpu")
@@ -29,11 +29,11 @@ except RuntimeError:
 import jax.numpy as jnp
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine, fit
-from libpll2_tpu import legacy_search as search
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
+import libpll2_jax as pll
+from libpll2_jax import engine, fit
+from libpll2_jax import legacy_search as search
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
 
 NEWICK = ("((A:0.12,B:0.20):0.05,(C:0.09,(D:0.15,E:0.11):0.07):0.04,"
           "(F:0.18,G:0.25):0.06);")

@@ -7,8 +7,8 @@ topology.
 import _common  # noqa: F401
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import tree as T
+import libpll2_jax as pll
+from libpll2_jax import tree as T
 
 NEWICK = "((t0:0.1,t1:0.1):0.1,(t2:0.1,t3:0.1):0.1);"
 SEQS = ["ACGTTACG", "ACGTTGCG", "TCGTTACA", "TCGATACG"]

@@ -9,16 +9,16 @@ instead of all of them.  Ten random inner nodes are evaluated in turn;
 every evaluation must produce the SAME log-likelihood (the tree and
 model never change — only the direction of evaluation does).
 
-On TPU the engine's fused whole-tree sweep is normally faster than
+On an accelerator the engine's fused whole-tree sweep is normally faster than
 bookkeeping staleness (see engine.compile_tree), but the mutable
 Partition API supports the reference's partial-update pattern exactly.
 """
 import _common  # noqa: F401
 
-import libpll2_tpu as pll
-from libpll2_tpu import tree as T
-from libpll2_tpu.tree.generate import balanced_newick, random_tipchars
-from libpll2_tpu.utils.random import GlibcRandom
+import libpll2_jax as pll
+from libpll2_jax import tree as T
+from libpll2_jax.tree.generate import balanced_newick, random_tipchars
+from libpll2_jax.utils.random import GlibcRandom
 
 import numpy as np
 

@@ -5,8 +5,8 @@ empirical rate/frequency tables (Dayhoff ... Q.pfam families), score the
 same data under each, and rank by log-likelihood.
 """
 import _common  # noqa: F401
-import libpll2_tpu as pll
-from libpll2_tpu.models.aa import aa_model, available_models
+import libpll2_jax as pll
+from libpll2_jax.models.aa import aa_model, available_models
 
 SEQS = [
     "ARNDCQEGHILKMFPSTWYVARNDCQEGHILKMFPSTWYV",

@@ -4,8 +4,8 @@ Mirror of /root/reference/examples/rooted/rooted.c: 5 taxa, GTR+GAMMA4,
 root logL at CLV 8, then +I at 0.5 / 0.75 — byte-identical output.
 """
 import _common  # noqa: F401
-import libpll2_tpu as pll
-from libpll2_tpu.utils import show_clv, show_pmatrix
+import libpll2_jax as pll
+from libpll2_jax.utils import show_clv, show_pmatrix
 
 partition = pll.Partition(tips=5, clv_buffers=4, states=4, sites=6,
                           rate_matrices=1, prob_matrices=5, rate_cats=4,

@@ -7,7 +7,7 @@ instead of character sequences.
 import _common  # noqa: F401
 import numpy as np
 
-import libpll2_tpu as pll
+import libpll2_jax as pll
 
 SITES, RATES, STATES = 4, 4, 4
 partition = pll.Partition(tips=3, clv_buffers=2, states=STATES,

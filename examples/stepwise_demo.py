@@ -8,9 +8,9 @@ hill-climb with one SPR round.
 import _common  # noqa: F401
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import tree as T
-from libpll2_tpu.parsimony import (fastparsimony_stepwise,
+import libpll2_jax as pll
+from libpll2_jax import tree as T
+from libpll2_jax.parsimony import (fastparsimony_stepwise,
                                    fastparsimony_stepwise_spr_round)
 
 rng = np.random.default_rng(7)

@@ -6,8 +6,8 @@ manual operations, P-matrix/CLV display, edge logL across the virtual
 root, and +I (invariant sites) re-evaluation — byte-identical output.
 """
 import _common  # noqa: F401  (platform bootstrap)
-import libpll2_tpu as pll
-from libpll2_tpu.utils import show_clv, show_pmatrix
+import libpll2_jax as pll
+from libpll2_jax.utils import show_clv, show_pmatrix
 
 partition = pll.Partition(tips=4, clv_buffers=2, states=4, sites=6,
                           rate_matrices=1, prob_matrices=5, rate_cats=4,

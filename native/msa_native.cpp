@@ -1,11 +1,11 @@
-// Native data layer for libpll2_tpu: the host-side pipeline that feeds the
-// TPU — FASTA/PHYLIP scanning, site-pattern compression, and tip bit-mask
+// Native data layer for libpll2_jax: the host-side pipeline that feeds the
+// device — FASTA/PHYLIP scanning, site-pattern compression, and tip bit-mask
 // encoding.  The reference implements this layer in C (fasta.c, phylip.c,
 // compress.c, pll.c tip encoding); here it is a fresh C++ implementation
 // exposed over a plain C ABI for ctypes (no pybind11 in this image).
 //
 // Semantics contract (validated by tests/test_native.py against the
-// pure-numpy implementations in libpll2_tpu/io/):
+// pure-numpy implementations in libpll2_jax/io/):
 //   * compression produces patterns in ascending lexicographic order of
 //     encoded columns (identical to np.unique(cols, axis=0));
 //   * FASTA parsing keeps alnum plus "-?*.!", silently strips

@@ -1,4 +1,4 @@
-/* Oracle driver for parity testing of the TPU-native phylogenetic engine.
+/* Oracle driver for parity testing of the JAX phylogenetic engine.
  *
  * Reads a small line-based script on stdin that configures a libpll-2
  * partition (the reference implementation, linked from /root/reference),

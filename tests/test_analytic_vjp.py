@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
+import libpll2_jax as pll
+from libpll2_jax import engine
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
 
 from .test_parity_tree import random_newick, random_seqs
 
@@ -51,7 +51,7 @@ def _setup(n_tips, sites, seed, scale_heavy=False, pinv=0.0,
         pw[sites:sites + 4] = [2.0, 1.0, 1.0, 3.0]
     pw = jnp.asarray(pw, cfg.dtype)
     if pinv:
-        from libpll2_tpu.partition import Partition
+        from libpll2_jax.partition import Partition
         part = Partition(n_tips, tree.inner_count, 4, sites, 1,
                          2 * n_tips - 3, 4, tree.inner_count,
                          dtype=jnp.float64)
@@ -129,7 +129,7 @@ def test_analytic_vjp_asc_and_per_rate(asc, per_rate, heavy):
 def test_analytic_vjp_in_fit_loss():
     """End-to-end: grad of a fit-style loss through the analytic path
     matches the XLA path (eigendecomposition inside the trace)."""
-    from libpll2_tpu import fit
+    from libpll2_jax import fit
     program, full, cfg, model, bl, tipchars, pw, inv = _setup(8, 128, 11)
     params = fit.pack([[1.2, 2.1, 0.7, 1.3, 2.5, 1.0]],
                       [[0.3, 0.25, 0.2, 0.25]], np.asarray(bl),
@@ -158,7 +158,7 @@ def test_analytic_vjp_in_fit_loss():
 def test_fit_model_analytic_path_matches():
     """fit_model with full_program (analytic VJP) reaches the same logL
     trajectory as the XLA-autodiff path."""
-    from libpll2_tpu import fit
+    from libpll2_jax import fit
     program, full, cfg, model, bl, tipchars, pw, inv = _setup(8, 128, 11)
     params = fit.pack([[1.2, 2.1, 0.7, 1.3, 2.5, 1.0]],
                       [[0.3, 0.25, 0.2, 0.25]], np.asarray(bl),

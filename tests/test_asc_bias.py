@@ -4,7 +4,7 @@ Mirrors the reference's asc-bias test intent (test/src/asc-bias.c)."""
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
+import libpll2_jax as pll
 
 from .oracle import run_oracle
 

@@ -24,12 +24,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
-from libpll2_tpu.tree import moves
-from libpll2_tpu.tree.utree import (reset_template_indices,
+import libpll2_jax as pll
+from libpll2_jax import engine
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
+from libpll2_jax.tree import moves
+from libpll2_jax.tree.utree import (reset_template_indices,
                                     traverse_subtree, wrap_tree)
 
 from .oracle import run_oracle

@@ -7,9 +7,9 @@ import subprocess
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu import tree as T
-from libpll2_tpu.tree.utree import show_ascii
+import libpll2_jax as pll
+from libpll2_jax import tree as T
+from libpll2_jax.tree.utree import show_ascii
 
 from .oracle import ensure_oracle
 from .test_parity_tree import random_newick
@@ -49,7 +49,7 @@ def test_ascii_byte_parity_random():
 
 
 def test_rtree_ascii_byte_parity():
-    from libpll2_tpu.tree.rtree import show_ascii_rtree
+    from libpll2_jax.tree.rtree import show_ascii_rtree
     nwk = ("((t0:0.1,t1:0.2)i1:0.05,"
            "(t2:0.3,(t3:0.15,t4:0.25):0.4)x:0.12)r;")
     binary = ensure_oracle()

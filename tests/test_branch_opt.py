@@ -9,10 +9,10 @@ oracle (tests/test_parity_derivatives.py)."""
 import jax.numpy as jnp
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
+import libpll2_jax as pll
+from libpll2_jax import engine
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
 
 from .test_parity_tree import random_newick, random_seqs
 
@@ -62,7 +62,7 @@ def test_branch_derivatives_match_single_edge_machinery():
     # the root branch's derivatives must agree with the single-branch path
     # used by optimize_root_branch (same sumtable machinery on the standard
     # sweep's root rows)
-    from libpll2_tpu.ops import derivatives as derivatives_ops
+    from libpll2_jax.ops import derivatives as derivatives_ops
     view, pmatrix = engine._sweep(program, cfg, model, bl, tipchars, pw)
     sp = jnp.zeros((cfg.rate_cats, 1), jnp.int32)
     st = derivatives_ops.update_sumtable(

@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
-from libpll2_tpu.parallel import distributed as D
+import libpll2_jax as pll
+from libpll2_jax import engine
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
+from libpll2_jax.parallel import distributed as D
 
 from .test_parity_tree import random_newick, random_seqs
 
@@ -160,11 +160,11 @@ def test_spr_round_site_sharded_matches_single_device():
     import jax
     import jax.numpy as jnp
 
-    import libpll2_tpu as pll
-    from libpll2_tpu import engine, search_fast as sf
-    from libpll2_tpu import tree as T
-    from libpll2_tpu.config import PartitionConfig
-    from libpll2_tpu.parallel import sharding
+    import libpll2_jax as pll
+    from libpll2_jax import engine, search_fast as sf
+    from libpll2_jax import tree as T
+    from libpll2_jax.config import PartitionConfig
+    from libpll2_jax.parallel import sharding
 
     from .test_parity_tree import random_newick
     from .test_search import FREQS, SUBST, simulate
@@ -203,8 +203,7 @@ def test_spr_round_site_sharded_matches_single_device():
     def run(tip_a, pw_a, inv_a):
         return sf._spr_round_device(
             cfgx, model, lops, pslots, bl, tip_a, pw_a, inv_a, rr, rs,
-            gdev, ball_slots=prog.ball_slots, newton_iters=2,
-            use_kernel=False)
+            gdev, ball_slots=prog.ball_slots, newton_iters=2)
 
     l0, outs0 = run(tipchars, pw, inv)
     mesh = sharding.make_mesh(jax.devices()[:8])

@@ -1,14 +1,17 @@
 """Fused engine: agreement with the partition API, sharded execution, and
 on-device Newton optimization."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
-from libpll2_tpu.parallel import sharding
+import libpll2_jax as pll
+from libpll2_jax import engine
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
+from libpll2_jax.parallel import sharding
 
 from .test_parity_tree import random_newick, random_seqs
 
@@ -127,6 +130,36 @@ def test_gradients_flow():
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("per_rate", [False, True])
+def test_f32_gradients_finite_under_scaling(per_rate):
+    """Where f32 rescaling fires, the site-logL cases that a site does not
+    take must not poison the gradient (an unused log 0 gives NaN under
+    autodiff); the f32 gradient follows the f64 one."""
+    tree, cfg, _, model, _, tipchars, pw, inv = build_case(n_tips=64,
+                                                           sites=64)
+    grads = {}
+    for dtype in (jnp.float32, jnp.float64):
+        cfg_d = dataclasses.replace(cfg, dtype=dtype,
+                                    per_rate_scalers=per_rate)
+        program = engine.compile_tree(tree, cfg_d)
+        model_d = jax.tree_util.tree_map(
+            lambda x: x.astype(dtype) if jnp.issubdtype(x.dtype, jnp.floating)
+            else x, model)
+        args = (jnp.asarray(tipchars), jnp.asarray(pw, dtype),
+                jnp.asarray(inv))
+        bl = jnp.asarray(program.default_branch_lengths * 3.0, dtype)
+        if dtype == jnp.float32:
+            view, _ = engine._sweep(program, cfg_d, model_d, bl, args[0],
+                                    args[1])
+            assert int(jnp.max(view.scaler_row(program.root_scaler))) > 0
+        grads[dtype] = np.asarray(jax.grad(
+            lambda b: engine.loglikelihood(program, cfg_d, model_d, b,
+                                           *args))(bl), np.float64)
+    assert np.all(np.isfinite(grads[jnp.float32]))
+    np.testing.assert_allclose(grads[jnp.float32], grads[jnp.float64],
+                               rtol=2e-3, atol=1e-3)
+
+
 def test_batched_optimizer_sharded_8dev():
     """The directional-message sweep, all-branch derivatives and batched
     Newton smoothing must produce identical results when the site axis is
@@ -161,3 +194,28 @@ def test_batched_optimizer_sharded_8dev():
     np.testing.assert_allclose(np.asarray(bl_s), np.asarray(bl_p),
                                rtol=1e-10)
     np.testing.assert_allclose(float(logl_s), float(logl_p), rtol=1e-12)
+
+
+@pytest.mark.parametrize("compiled_for", ["float32", "float64"])
+def test_full_program_serves_any_dtype(compiled_for):
+    """A FullTreeProgram fixes the message-row layout only: smoothing in
+    f64 with a program compiled under an f32 config rescues at the f64
+    threshold, so it gives the f64 program's answer, and the logL it
+    returns is the tree's logL at the branch lengths it returns."""
+    tree, cfg, program, model, _, tipchars, pw, inv = build_case(n_tips=64,
+                                                                 sites=64)
+    assert cfg.dtype == jnp.float64
+    args = (jnp.asarray(tipchars), jnp.asarray(pw), jnp.asarray(inv))
+    bl0 = jnp.asarray(program.default_branch_lengths * 3.0)
+    out = {}
+    for name in {"float64", compiled_for}:
+        full = engine.compile_tree_full(
+            tree, dataclasses.replace(cfg, dtype=jnp.dtype(name)))
+        out[name] = engine.optimize_branch_lengths(full, cfg, model, bl0,
+                                                   *args, rounds=1)
+    bl, logl = out[compiled_for]
+    np.testing.assert_allclose(float(logl), float(out["float64"][1]),
+                               rtol=1e-12)
+    np.testing.assert_allclose(
+        float(logl), float(engine.loglikelihood(program, cfg, model, bl,
+                                                *args)), rtol=1e-10)

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine, fit
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
-from libpll2_tpu.models.ratematrix import (build_rate_matrix,
+import libpll2_jax as pll
+from libpll2_jax import engine, fit
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
+from libpll2_jax.models.ratematrix import (build_rate_matrix,
                                            build_rate_matrix_jax,
                                            update_eigen_jax)
 
@@ -49,7 +49,7 @@ def test_rate_matrix_jax_matches_host():
     np.testing.assert_allclose(b_jax, b_host, rtol=1e-13, atol=1e-15)
     d, v, iv = update_eigen_jax(jnp.asarray(SUBST, jnp.float64),
                                 jnp.asarray(FREQS, jnp.float64))
-    from libpll2_tpu.models.ratematrix import update_eigen
+    from libpll2_jax.models.ratematrix import update_eigen
     ref = update_eigen(np.asarray(SUBST), np.asarray(FREQS))
     np.testing.assert_allclose(np.sort(np.asarray(d)),
                                np.sort(ref.eigenvals), rtol=1e-10,
@@ -116,9 +116,9 @@ def test_fit_improves_and_recovers():
 
 
 def test_gamma_jax_matches_host():
-    from libpll2_tpu.models.gamma import (compute_gamma_cats,
+    from libpll2_jax.models.gamma import (compute_gamma_cats,
                                           compute_gamma_cats_jax)
-    from libpll2_tpu.constants import GAMMA_RATES_MEAN, GAMMA_RATES_MEDIAN
+    from libpll2_jax.constants import GAMMA_RATES_MEAN, GAMMA_RATES_MEDIAN
     for alpha in (0.2, 0.8, 1.0, 2.5, 10.0):
         for C in (2, 4, 8):
             for mode in (GAMMA_RATES_MEAN, GAMMA_RATES_MEDIAN):
@@ -132,7 +132,7 @@ def test_gamma_jax_matches_host():
 
 
 def test_gamma_alpha_gradient():
-    from libpll2_tpu.models.gamma import (compute_gamma_cats,
+    from libpll2_jax.models.gamma import (compute_gamma_cats,
                                           compute_gamma_cats_jax)
     g = jax.grad(lambda a: compute_gamma_cats_jax(a, 4)[0])(
         jnp.float64(0.8))
@@ -161,7 +161,7 @@ def test_fit_alpha_recovers_rate_heterogeneity():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from libpll2_tpu.utils import checkpoint
+    from libpll2_jax.utils import checkpoint
     params = fit.pack([SUBST], [FREQS], [0.1, 0.2, 0.3], alpha=1.5,
                       dtype=jnp.float64)
     checkpoint.save(tmp_path / "ck", params)

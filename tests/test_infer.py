@@ -3,11 +3,11 @@ journey — encode, compress, parsimony start, model fit, SPR search —
 must recover a simulated truth topology and its model parameters."""
 import numpy as np
 
-from libpll2_tpu import infer_ml_tree
-from libpll2_tpu import tree as T
-from libpll2_tpu.models.gamma import compute_gamma_cats
-from libpll2_tpu.tree.compare import rf_distance_normalized
-from libpll2_tpu.tree.generate import random_newick, simulate_alignment
+from libpll2_jax import infer_ml_tree
+from libpll2_jax import tree as T
+from libpll2_jax.models.gamma import compute_gamma_cats
+from libpll2_jax.tree.compare import rf_distance_normalized
+from libpll2_jax.tree.generate import random_newick, simulate_alignment
 
 NT = {1: "A", 2: "C", 4: "G", 8: "T"}
 

@@ -6,8 +6,8 @@ as the uncompressed one (compress.c semantics + per-site weighted sum)."""
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu.io import (MSA, compress_site_patterns, load_fasta_string,
+import libpll2_jax as pll
+from libpll2_jax.io import (MSA, compress_site_patterns, load_fasta_string,
                             load_phylip_string)
 
 FASTA = """>taxon1 first
@@ -135,7 +135,7 @@ def test_compress_logl_equivalence():
 def test_fasta_streaming_reader(tmp_path):
     """FastaFile: record-at-a-time getnext with rewind/position
     (pll_fasta_open/getnext/rewind/getfilepos, fasta.c:40-326)."""
-    from libpll2_tpu.io import FastaFile
+    from libpll2_jax.io import FastaFile
 
     path = tmp_path / "msa.fa"
     path.write_text(FASTA)
@@ -157,8 +157,8 @@ def test_fasta_streaming_reader(tmp_path):
 
 
 def test_fasta_streaming_errors(tmp_path):
-    from libpll2_tpu.io import FastaFile
-    from libpll2_tpu.io.fasta import FastaError
+    from libpll2_jax.io import FastaFile
+    from libpll2_jax.io.fasta import FastaError
 
     bad = tmp_path / "bad.fa"
     bad.write_text("ACGT\n>x\nACGT\n")

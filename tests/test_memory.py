@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
-from libpll2_tpu.utils import memory as M
+import libpll2_jax as pll
+from libpll2_jax import engine
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
+from libpll2_jax.utils import memory as M
 
 from .test_parity_tree import random_newick, random_seqs
 
@@ -31,17 +31,24 @@ def test_dense_accounting_matches_arrays():
 
 def test_max_sites_monotone_and_consistent():
     # bf16 dense ~doubles f32 dense; fast path dwarfs both
-    f64 = M.max_sites(256, dtype=jnp.float64, fast_path=False)
-    f32 = M.max_sites(256, dtype=jnp.float32, fast_path=False)
-    bf16 = M.max_sites(256, dtype=jnp.bfloat16, fast_path=False)
-    fast = M.max_sites(256, dtype=jnp.float32, fast_path=True)
+    hbm = 80 * 1024 ** 3
+    f64 = M.max_sites(256, dtype=jnp.float64, fast_path=False,
+                      hbm_bytes=hbm)
+    f32 = M.max_sites(256, dtype=jnp.float32, fast_path=False,
+                      hbm_bytes=hbm)
+    bf16 = M.max_sites(256, dtype=jnp.bfloat16, fast_path=False,
+                       hbm_bytes=hbm)
+    fast = M.max_sites(256, dtype=jnp.float32, fast_path=True,
+                       hbm_bytes=hbm)
     assert f64 < f32 < bf16 < fast
     assert 1.8 < bf16 / f32 < 2.2
-    assert fast / f32 > 25        # 4 B/site/tip vs 2*R*S*4 dense rows
-    # more taxa -> fewer sites
-    assert M.max_sites(1024, fast_path=True) < M.max_sites(
-        64, fast_path=True)
-    table = M.max_sites_table()
+    # 4 B/site/tip + O(log n) pool rows vs 2*R*S*4 B/site/tip dense
+    assert fast / f32 > 15
+    # more taxa -> fewer sites; more memory -> more sites
+    assert M.max_sites(1024, fast_path=True, hbm_bytes=hbm) < M.max_sites(
+        64, fast_path=True, hbm_bytes=hbm)
+    assert M.max_sites(256, hbm_bytes=hbm // 2) < fast
+    table = M.max_sites_table(hbm)
     assert table.count("|") > 40 and "4096" in table
 
 

@@ -3,9 +3,9 @@ workflow after a move — mirrors examples/partial-traversal/partial.c and
 utree_moves.c semantics."""
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import tree as T
-from libpll2_tpu.tree import moves
+import libpll2_jax as pll
+from libpll2_jax import tree as T
+from libpll2_jax.tree import moves
 
 from .test_parity_tree import random_newick, random_seqs
 

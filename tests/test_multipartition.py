@@ -10,11 +10,11 @@ combination left to clients (SURVEY.md §2.6).
 import jax.numpy as jnp
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine, multipartition
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
-from libpll2_tpu.models.aa import aa_model
+import libpll2_jax as pll
+from libpll2_jax import engine, multipartition
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
+from libpll2_jax.models.aa import aa_model
 
 from .oracle import run_oracle
 from .test_parity_tree import random_newick, random_seqs

@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu import native
-from libpll2_tpu.io import compress_site_patterns, load_fasta_msa
-from libpll2_tpu.io.fasta import iter_fasta
+import libpll2_jax as pll
+from libpll2_jax import native
+from libpll2_jax.io import compress_site_patterns, load_fasta_msa
+from libpll2_jax.io.fasta import iter_fasta
 
 pytestmark = pytest.mark.skipif(not native.ensure_native(),
                                 reason="native build unavailable")
@@ -20,7 +20,7 @@ def test_compress_matches_numpy():
             for _ in range(20)]
     n_out, n_w, n_map = compress_site_patterns(seqs, pll.MAP_NT,
                                                return_map=True)
-    os.environ["LIBPLL2_TPU_NATIVE"] = "0"
+    os.environ["LIBPLL2_NATIVE"] = "0"
     try:
         # force the numpy path by monkeypatching availability
         charmap_avail = native.available
@@ -32,7 +32,7 @@ def test_compress_matches_numpy():
     finally:
         native._lib = native_avail_backup
         native._tried = True
-        del os.environ["LIBPLL2_TPU_NATIVE"]
+        del os.environ["LIBPLL2_NATIVE"]
         del charmap_avail
     assert n_out == p_out
     np.testing.assert_array_equal(n_w, p_w)

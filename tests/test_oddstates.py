@@ -6,7 +6,7 @@ calling (maps.c:26-265, special-cased 16-state kernels pll.h:2429)."""
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
+import libpll2_jax as pll
 
 from .oracle import run_oracle
 

@@ -6,7 +6,7 @@ Scenario mirrors the reference's examples/unrooted/unrooted.c: 4 tips,
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
+import libpll2_jax as pll
 
 from .oracle import run_oracle
 

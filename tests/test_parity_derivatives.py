@@ -7,7 +7,7 @@ inner-inner edge of a 5-taxon caterpillar.
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
+import libpll2_jax as pll
 
 from .oracle import run_oracle
 

@@ -1,5 +1,5 @@
 """End-to-end parity on whole trees: our newick parser + operations compiler
-drive both the reference oracle and the TPU engine with identical operation
+drive both the reference oracle and the JAX engine with identical operation
 arrays; log-likelihoods, per-site values, and scaler counts must agree.
 
 The caterpillar case is deep enough to trigger the 2^-256 counter-based
@@ -8,8 +8,8 @@ scaling protocol (scaling.c test analog).
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu import tree as T
+import libpll2_jax as pll
+from libpll2_jax import tree as T
 
 from .oracle import run_oracle
 
@@ -73,7 +73,7 @@ def run_both(newick, seqs, sites, rate_cats=4, alpha=0.8):
     lines.append(f"print_scaler {root.scaler_index}")
     golden = run_oracle("\n".join(lines) + "\n")
 
-    # --- TPU engine ---
+    # --- JAX engine ---
     p = pll.Partition(tips, tree.inner_count, 4, sites, 1, 2 * tips - 3,
                       rate_cats, tree.inner_count)
     p.set_frequencies(0, [0.3, 0.25, 0.2, 0.25])

@@ -15,10 +15,10 @@ The reference supports per-rate scaling in every kernel family
 import jax.numpy as jnp
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
+import libpll2_jax as pll
+from libpll2_jax import engine
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
 
 from .oracle import run_oracle
 from .test_parity_tree import random_newick, random_seqs

@@ -4,8 +4,8 @@ rate matrices.  Mirrors the reference's protein-models.c test intent."""
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu.models.aa import aa_model, available_models
+import libpll2_jax as pll
+from libpll2_jax.models.aa import aa_model, available_models
 
 from .oracle import run_oracle
 

@@ -8,9 +8,9 @@ bit-for-bit, and both must match the reference.
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu import tree as T
-from libpll2_tpu.repeats import Repeats, first_occurrence_classes
+import libpll2_jax as pll
+from libpll2_jax import tree as T
+from libpll2_jax.repeats import Repeats, first_occurrence_classes
 
 from .oracle import run_oracle
 from .test_parity_tree import random_newick

@@ -5,8 +5,8 @@ principle)."""
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu import tree as T
+import libpll2_jax as pll
+from libpll2_jax import tree as T
 
 from .oracle import run_oracle
 

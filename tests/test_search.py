@@ -4,13 +4,13 @@ topology on data simulated along a true tree."""
 import jax.numpy as jnp
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine
-from libpll2_tpu import legacy_search as search
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
-from libpll2_tpu.models.ratematrix import update_eigen
-from libpll2_tpu.tree.utree import traverse_subtree
+import libpll2_jax as pll
+from libpll2_jax import engine
+from libpll2_jax import legacy_search as search
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
+from libpll2_jax.models.ratematrix import update_eigen
+from libpll2_jax.tree.utree import traverse_subtree
 
 from .test_parity_tree import random_newick
 

@@ -15,12 +15,12 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine, search_fast
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
-from libpll2_tpu.tree import moves, parse_newick_string
-from libpll2_tpu.tree.utree import export_newick
+import libpll2_jax as pll
+from libpll2_jax import engine, search_fast
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
+from libpll2_jax.tree import moves, parse_newick_string
+from libpll2_jax.tree.utree import export_newick
 
 from .test_parity_tree import random_newick
 from .test_search import FREQS, SUBST, simulate

@@ -13,12 +13,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine, search_fast
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
-from libpll2_tpu.tree import moves, parse_newick_string
-from libpll2_tpu.tree.utree import export_newick
+import libpll2_jax as pll
+from libpll2_jax import engine, search_fast
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
+from libpll2_jax.tree import moves, parse_newick_string
+from libpll2_jax.tree.utree import export_newick
 
 from .test_parity_tree import random_newick
 from .test_search import FREQS, SUBST, simulate
@@ -139,7 +139,7 @@ def test_hill_climb_monotone_beats_legacy_and_caches():
     # full-suite run) when that lands on top of a large in-process
     # compilation cache.
     jax.clear_caches()
-    from libpll2_tpu import legacy_search as search
+    from libpll2_jax import legacy_search as search
     legacy = start
     legacy_logl = None
     for _ in range(10):
@@ -231,7 +231,7 @@ def test_simulate_alignment_valid_codes():
     """Generator sanity: every simulated tip state is a single-base
     bitmask, labels cover the tips, and short branches preserve state
     more often than long ones (signal exists for search demos)."""
-    from libpll2_tpu.tree.generate import simulate_alignment
+    from libpll2_jax.tree.generate import simulate_alignment
     rng = np.random.default_rng(1)
     short = T.parse_newick_string("((a:0.01,b:0.01):0.01,c:0.01,d:0.01);")
     long = T.parse_newick_string("((a:5.0,b:5.0):5.0,c:5.0,d:5.0);")

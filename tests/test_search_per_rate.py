@@ -15,12 +15,12 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import engine, search_fast
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
-from libpll2_tpu.tree import moves, parse_newick_string
-from libpll2_tpu.tree.utree import export_newick
+import libpll2_jax as pll
+from libpll2_jax import engine, search_fast
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
+from libpll2_jax.tree import moves, parse_newick_string
+from libpll2_jax.tree.utree import export_newick
 
 from .test_parity_tree import random_seqs
 
@@ -144,7 +144,7 @@ def test_per_rate_radius_scores_match_exhaustive():
                jnp.asarray(g.score_ops), jnp.asarray(g.sub_rows),
                jnp.asarray(g.edge_pos), jnp.asarray(g.merge_edges))
               for g in prog_r.ball_groups),
-        ball_slots=prog_r.ball_slots, newton_iters=2, use_kernel=False)
+        ball_slots=prog_r.ball_slots, newton_iters=2)
     checked = 0
     for g, (s, _t3) in zip(prog_r.ball_groups, outs):
         s = np.asarray(s)

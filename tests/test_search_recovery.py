@@ -14,12 +14,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from libpll2_tpu import engine, search_fast
-from libpll2_tpu import tree as T
-from libpll2_tpu.config import PartitionConfig
-from libpll2_tpu.models.gamma import compute_gamma_cats
-from libpll2_tpu.tree.compare import rf_distance_normalized
-from libpll2_tpu.tree.generate import random_newick, simulate_alignment
+from libpll2_jax import engine, search_fast
+from libpll2_jax import tree as T
+from libpll2_jax.config import PartitionConfig
+from libpll2_jax.models.gamma import compute_gamma_cats
+from libpll2_jax.tree.compare import rf_distance_normalized
+from libpll2_jax.tree.generate import random_newick, simulate_alignment
 
 
 def _sim(tips, sites, seed=11):

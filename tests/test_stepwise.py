@@ -8,12 +8,12 @@ seed-for-seed (stepwise.c:56-106).
 import numpy as np
 import pytest
 
-import libpll2_tpu as pll
-from libpll2_tpu import tree as T
-from libpll2_tpu.parsimony import (fastparsimony_stepwise,
+import libpll2_jax as pll
+from libpll2_jax import tree as T
+from libpll2_jax.parsimony import (fastparsimony_stepwise,
                                    fastparsimony_stepwise_extend,
                                    fastparsimony_stepwise_spr_round)
-from libpll2_tpu.utils.random import GlibcRandom, create_shuffled
+from libpll2_jax.utils.random import GlibcRandom, create_shuffled
 
 from .oracle import run_oracle
 from .test_parity_tree import random_seqs

@@ -3,10 +3,10 @@
 deterministic branch lengths."""
 import numpy as np
 
-import libpll2_tpu as pll
-from libpll2_tpu import tree as T
-from libpll2_tpu.parsimony import fastparsimony_stepwise
-from libpll2_tpu.tree.svg import SvgAttrib, export_svg
+import libpll2_jax as pll
+from libpll2_jax import tree as T
+from libpll2_jax.parsimony import fastparsimony_stepwise
+from libpll2_jax.tree.svg import SvgAttrib, export_svg
 
 from .oracle import ORACLE_DIR, run_oracle
 from .test_parity_tree import random_seqs

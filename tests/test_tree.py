@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from libpll2_tpu import tree as T
-from libpll2_tpu.constants import SCALE_BUFFER_NONE
+from libpll2_jax import tree as T
+from libpll2_jax.constants import SCALE_BUFFER_NONE
 
 NEWICK = "((A:0.1,B:0.2):0.3,C:0.4,(D:0.5,E:0.6):0.7);"
 

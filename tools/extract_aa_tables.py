@@ -15,7 +15,7 @@ import numpy as np
 
 REF = Path("/root/reference/src/maps.c")
 OUT = Path(__file__).resolve().parent.parent / \
-    "libpll2_tpu/models/data/aa_tables.npz"
+    "libpll2_jax/models/data/aa_tables.npz"
 
 
 def main() -> None:
